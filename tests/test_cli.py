@@ -131,8 +131,7 @@ def test_guarded_compress_real_buffer_and_injected_overrun():
 def test_cli_jaxdev_one_shot_matches_native_stream(tmp_path):
     """With the jaxdev engine, the CLI routes whole files through the
     engine's one-shot compress_corpus (batched device begin-phase) —
-    byte-identical to the native engine's chunked stream path (VERDICT
-    r4 item 3)."""
+    byte-identical to the native engine's chunked stream path."""
     src = REPO / "SURVEY.md"
     out_n = tmp_path / "n.gz"
     out_j = tmp_path / "j.gz"

@@ -1,14 +1,11 @@
-"""JAX/Pallas TPU kernels: cross-validation against spec/native engines.
-
-Runs on CPU (conftest forces JAX_PLATFORMS=cpu with 8 virtual devices);
-Pallas kernels run in interpreter mode here and compiled on real TPU.
-"""
+"""Device (JAX/XLA) stages: cross-validation against the spec and native
+engines. Runs on the CPU (conftest: 8 virtual devices)."""
 
 import zlib
-from pathlib import Path
 
 import numpy as np
 import pytest
+from conftest import SOURCE_TEXT
 
 from zultra_tpu.constants import NLITERALSYMS, NOFFSETSYMS
 
@@ -44,15 +41,6 @@ def test_token_histogram_jax():
     syms = rng.randint(0, 288, 5000).astype(np.int32)
     hist = np.asarray(token_histogram_jax(syms, 288))
     assert np.array_equal(hist, np.bincount(syms, minlength=288))
-
-
-def test_byte_histogram_pallas_interpret():
-    from zultra_tpu.ops import byte_histogram_pallas
-
-    rng = np.random.RandomState(8)
-    data = rng.randint(0, 256, 10000).astype(np.uint8)
-    hist = byte_histogram_pallas(data, interpret=True)
-    assert np.array_equal(hist, np.bincount(data, minlength=256))
 
 
 def test_adler32_jax_and_combine():
@@ -161,22 +149,6 @@ def test_dp_block_boundary_unsigned_wrap():
     )
     assert np.array_equal(best_spec, best_native)
     assert np.array_equal(best_spec, best_jax)
-
-
-def test_matchlen_pallas_interpret():
-    from zultra_tpu.ops.matchlen import match_lengths_pallas
-
-    rng = np.random.RandomState(11)
-    data = bytes(rng.randint(0, 4, 3000).astype(np.uint8))
-    pos = rng.randint(1, 3000, 100).astype(np.int32)
-    prev = (pos - rng.randint(1, 500, 100).clip(max=pos - 0)).clip(min=0).astype(np.int32)
-    got = match_lengths_pallas(np.frombuffer(data, np.uint8), pos, prev, interpret=True)
-    for k in range(100):
-        i, j = int(pos[k]), int(prev[k])
-        l = 0
-        while i + l < 3000 and j + l < 3000 and data[i + l] == data[j + l] and l < 258:
-            l += 1
-        assert got[k] == l, (k, i, j, got[k], l)
 
 
 def brute_force_parse_cost(window, table, lit_lens, off_lens, cached=None):
@@ -494,7 +466,7 @@ def test_write_tokens_jax_equals_bitwriter():
     lit_lens = np.asarray(lit.code_length, dtype=np.int32)
     off_lens = np.asarray(off.code_length, dtype=np.int32)
 
-    src = Path("/root/reference/src/blockdeflate.c").read_bytes()
+    src = SOURCE_TEXT.read_bytes()
     rng = np.random.RandomState(5)
     cases = [
         (np.frombuffer(src[:20000], dtype=np.uint8), 0),
@@ -557,9 +529,7 @@ def test_write_tokens_jax_dynamic_codes():
     from zultra_tpu.huffman import HuffmanEncoder
     from zultra_tpu.ops.emit_jax import write_tokens_jax
 
-    data = np.frombuffer(
-        Path("/root/reference/src/libzultra.c").read_bytes()[:16384], dtype=np.uint8
-    )
+    data = np.frombuffer(SOURCE_TEXT.read_bytes()[20000:36384], dtype=np.uint8)
     data = np.ascontiguousarray(data)
     n = data.shape[0]
     table = native.build_match_table(data, 0)
@@ -1006,21 +976,3 @@ def test_split_jax_trigger_overflow_fallback():
     expect = block_split(window, table, 0, n, 64)
     got = block_split_jax(window, table, 0, n)
     assert got == expect
-
-
-def test_sort_hist_equals_scatter_hist():
-    """ops/block_jax._sort_hist (the TPU token-histogram form — scatters
-    whose operands depend on a Pallas output degrade on-chip, see §6)
-    must count identically to the scatter-add form on every backend."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from zultra_tpu.ops.block_jax import _sort_hist
-
-    rng = np.random.default_rng(3)
-    for nbins in (33, 289, 321):
-        sym = rng.integers(0, nbins + 1, (5, 4096)).astype(np.int32)
-        got = np.asarray(_sort_hist(jnp.asarray(sym), nbins))
-        for b in range(5):
-            ref = np.bincount(sym[b][sym[b] < nbins], minlength=nbins)
-            assert np.array_equal(got[b], ref)

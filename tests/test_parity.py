@@ -104,7 +104,7 @@ def test_fuzz_parity_short(ref_lib):
 
 @pytest.mark.slow
 def test_fuzz_parity_long(ref_lib):
-    """Pinned long-campaign fuzz budget (VERDICT r1 weak #7): runs under
+    """Pinned long-campaign fuzz budget: runs under
     `pytest -m slow`; ZULTRA_FUZZ_SECONDS overrides the 300 s default,
     ZULTRA_FUZZ_SEED the seed (failures dump reproducers to /tmp)."""
     import os

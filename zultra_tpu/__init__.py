@@ -1,8 +1,8 @@
-"""zultra_tpu — a TPU-native near-optimal DEFLATE (RFC 1951/1950/1952)
-compression framework.
+"""zultra_tpu — a near-optimal DEFLATE (RFC 1951/1950/1952) compression
+framework with a host engine and a JAX device engine.
 
 A from-scratch reimplementation of the capabilities of emmanuel-marty/zultra
-for TPU hardware: suffix-array LCP-interval match finding, optimal-parse
+for accelerators: suffix-array LCP-interval match finding, optimal-parse
 cost DP, Moffat–Katajainen Huffman construction with Zopfli-style RLE table
 optimization, entropy-drift block splitting, zlib-style streaming API with
 preset dictionaries — producing output byte-for-byte identical to the

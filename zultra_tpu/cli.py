@@ -64,8 +64,8 @@ def do_compress(in_path: str, out_path: str, flags: int, dictionary: bytes | Non
         # Engines with a one-shot corpus path (jaxdev: windows batched
         # through the composed device begin-phase) compress whole files
         # through it — byte-identical to the chunked stream at the same
-        # block size, without paying per-window begin latency (VERDICT
-        # r4 item 3; reference one-shot API src/libzultra.c:601-619).
+        # block size, without paying per-window begin latency (reference
+        # one-shot API src/libzultra.c:601-619).
         data = open(in_path, "rb").read()
         try:
             blob = compress(data, flags, dictionary=dictionary)

@@ -1,6 +1,6 @@
 """DEFLATE bitstream format constants and symbol-mapping tables.
 
-TPU-native reimplementation of the format layer of the reference
+Reimplementation of the format layer of the reference
 (see reference src/format.h:37-51 and src/blockdeflate.c:45-85).
 The symbol-mapping tables are *generated* from the RFC 1951 code tables
 rather than transcribed.

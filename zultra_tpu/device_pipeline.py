@@ -137,7 +137,6 @@ def begin_window_device(window: np.ndarray, prev: int, in_size: int,
 
     from .ops.block_jax import plan_blocks_device
     from .ops.matchfinder_jax import match_table_device
-    from .ops.split_jax import _batch_chain_marks
     from .ops.split_jax import _bucket as _split_bucket
     from .ops.split_jax import _input_cap, _split_kernel, _trig_cap
 
@@ -149,18 +148,15 @@ def begin_window_device(window: np.ndarray, prev: int, in_size: int,
     tail = jnp.zeros(n_pad_w - n, jnp.int32)
     rl = jnp.concatenate([lens[:, 0].astype(jnp.int32), tail])
     ro = jnp.concatenate([offs[:, 0].astype(jnp.int32), tail])
-    tok = _batch_chain_marks(
-        rl[None, :], jnp.int32(prev), jnp.asarray([n], jnp.int32), n_pad_w
-    )
     in_cap = _input_cap(in_size)
     splits_arr, n_splits, _, ovf = _split_kernel(
         win_p, rl, ro, jnp.int32(prev), jnp.int32(n), n_pad_w,
-        in_cap, None if tok is None else tok[0], trig_cap=_trig_cap(in_cap),
+        in_cap, trig_cap=_trig_cap(in_cap),
     )
     if bool(ovf):
         splits_arr, n_splits, _, _ = _split_kernel(
             win_p, rl, ro, jnp.int32(prev), jnp.int32(n), n_pad_w,
-            in_cap, None if tok is None else tok[0], trig_cap=0,
+            in_cap, trig_cap=0,
         )
     splits = [int(x) for x in np.asarray(splits_arr[: int(n_splits)])]
     splits.append(n)
@@ -367,8 +363,10 @@ def compress_device(
     (the batch scales with the mesh)."""
     from . import frame
     from .constants import HISTORY_SIZE
+    from .device import enable_compile_cache
     from .stream import StreamError, clamp_block_size, memory_bound
 
+    enable_compile_cache()
     mbs = clamp_block_size(max_block_size)
     data_b = bytes(data)
     if not data_b:
@@ -441,9 +439,8 @@ class DeviceWindowEngine:
     API queues windows (``queue_window``) and plans the whole lookahead
     in one ``_begin_windows_batched`` call when the stream first needs a
     plan — so ``Stream`` + jaxdev matches the one-shot path's batched
-    throughput instead of paying the per-window begin latency
-    (VERDICT r3 item 3; the reference's streaming trigger is
-    src/libzultra.c:269-343)."""
+    throughput instead of paying the per-window begin latency (the
+    reference's streaming trigger is src/libzultra.c:269-343)."""
 
     name = "jaxdev"
     pipeline_depth = 16  # windows per device batch through the stream
@@ -451,19 +448,17 @@ class DeviceWindowEngine:
     def __init__(self):
         import os
 
+        from .device import enable_compile_cache, on_gpu
+
+        enable_compile_cache()
         self._queue: list[tuple[_QueuedWindow, np.ndarray, int, int]] = []
         self._mbs_seen = 0
-        # The queued batched begin-phase pays off on the device; on CPU
-        # backends (the test suite) it would only multiply compile
-        # shapes, so the stream falls back to per-window begin there.
-        # ZULTRA_JAXDEV_QUEUE=1/0 overrides.
+        # The queued batched begin-phase pays off on the GPU; on the CPU
+        # (the test suite) it would only multiply compile shapes, so the
+        # stream plans window by window there. ZULTRA_JAXDEV_QUEUE=1/0
+        # overrides.
         queued = os.environ.get("ZULTRA_JAXDEV_QUEUE")
-        if queued is None:
-            import jax
-
-            use_queue = jax.default_backend() == "tpu"
-        else:
-            use_queue = queued == "1"
+        use_queue = on_gpu() if queued is None else queued == "1"
         if use_queue:
             self.queue_window = self._queue_window
 

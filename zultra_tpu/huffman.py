@@ -1,6 +1,6 @@
 """Huffman entropy-coding layer.
 
-TPU-native reimplementation of the reference entropy layer
+Reimplementation of the reference entropy layer
 (src/huffman/huffencoder.c, src/huffman/huffutils.c) with identical
 decisions and tie-breaking, so that canonical code assignments — and hence
 the emitted bitstream — are byte-for-byte identical:
@@ -19,7 +19,7 @@ the emitted bitstream — are byte-for-byte identical:
 
 The alphabets are tiny (≤288 symbols), so this layer runs on the host; the
 per-block symbol histograms it consumes are produced by the vectorized /
-TPU paths.
+device paths.
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ fast path and this spec path are interchangeable:
   or visiting position | VISITED_FLAG once visited).
 * ``pos_data``: per-position ref of the deepest containing interval.
 
-This stage is sequential by nature (lazy updates); the TPU build keeps it
+This stage is sequential by nature (lazy updates); the package keeps it
 on the host (Python spec here, C++ in zultra_tpu/native) while the suffix
 array / PLCP stages that feed it are vectorized.
 """

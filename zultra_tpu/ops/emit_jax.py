@@ -21,10 +21,10 @@ the end-of-data codeword is appended as a final lane. This is the last
 compute stage of the begin-phase to get a device formulation (SA, match
 finder, and the cost DP already have one); a full-device pipeline would
 download only these packed words (~compressed size) instead of per-window
-match tables — the design headroom discussed in docs/ARCHITECTURE.md §6.
+match tables.
 
-Like the other device stages it is latency-bound on the attached v5e and
-exists as the validated construction, not the production path.
+It exists as the validated construction; the production planner emits
+through ops/block_jax._emit_tokens.
 """
 
 from __future__ import annotations

@@ -48,17 +48,6 @@ from ..constants import (
 INF32 = jnp.int32(2**30)
 
 
-def _mk_impl() -> str:
-    """'pallas' (VMEM-resident MK/Kraft kernels, ops/mk_pallas — TPU) or
-    'scan' (the XLA scans — every backend). ZULTRA_MK_IMPL overrides."""
-    import os
-
-    choice = os.environ.get("ZULTRA_MK_IMPL", "auto")
-    if choice == "auto":
-        return "pallas" if jax.default_backend() == "tpu" else "scan"
-    return choice
-
-
 def mk_lengths(hist: jnp.ndarray) -> jnp.ndarray:
     """Batched Moffat–Katajainen minimum-redundancy code lengths.
 
@@ -80,9 +69,8 @@ def mk_lengths(hist: jnp.ndarray) -> jnp.ndarray:
     # ---- phase 1: two-queue merge, scan over t = 0..S-2 ------------------
     # Every step is O(B): per-lane gathers at the two queue heads, one
     # drop-masked scatter for the consumed internal node, one column
-    # write for a[t]. (An O(B·S) masked select per step was the
-    # splitter's dominant cost at wide batches — 287 steps × B×S×8 B of
-    # HBM traffic; see docs/ARCHITECTURE.md §6.)
+    # write for a[t]. (An O(B·S) masked select per step would move
+    # 287 steps × B×S×8 B of device memory traffic.)
     def pick(a, leaf, internal, t, w_acc, active):
         av_leaf = jnp.take_along_axis(a, jnp.clip(leaf, 0, S - 1)[:, None], axis=1)[:, 0]
         av_int = jnp.take_along_axis(a, jnp.clip(internal, 0, S - 1)[:, None], axis=1)[:, 0]
@@ -111,35 +99,29 @@ def mk_lengths(hist: jnp.ndarray) -> jnp.ndarray:
         )
         return (a, leaf, internal), None
 
-    if _mk_impl() == "pallas" and S % 8 == 0:
-        from .mk_pallas import mk_phase12_pallas
+    (a, _, _), _ = lax.scan(
+        phase1_step,
+        (a0, jnp.zeros(B, jnp.int32), jnp.zeros(B, jnp.int32)),
+        jnp.arange(S - 1, dtype=jnp.int32),
+    )
 
-        a = mk_phase12_pallas(a0, n_used)
-    else:
-        (a, _, _), _ = lax.scan(
-            phase1_step,
-            (a0, jnp.zeros(B, jnp.int32), jnp.zeros(B, jnp.int32)),
-            jnp.arange(S - 1, dtype=jnp.int32),
-        )
+    # ---- phase 2: internal depths via the parent chain -------------------
+    # a[n-2] = 0 (root), then a[t] = a[a[t]-1] + 1 backwards. Parents
+    # have larger indices, so a backward scan resolves each in one step.
+    root = jnp.clip(n_used - 2, 0, S - 1)
+    a = jnp.where(jnp.arange(S)[None, :] == root[:, None], 0, a)
 
-        # -- phase 2: internal depths via the parent chain ----------------
-        # a[n-2] = 0 (root), then a[t] = a[a[t]-1] + 1 backwards. Parents
-        # have larger indices, so a backward scan resolves each in one
-        # step.
-        root = jnp.clip(n_used - 2, 0, S - 1)
-        a = jnp.where(jnp.arange(S)[None, :] == root[:, None], 0, a)
+    def phase2_step(a, t):
+        active = t <= n_used - 3
+        parent = _dyn_col(a, t) - 1
+        pdepth = jnp.take_along_axis(a, jnp.clip(parent, 0, S - 1)[:, None], axis=1)[:, 0]
+        newv = jnp.where(active, pdepth + 1, _dyn_col(a, t))
+        a = lax.dynamic_update_slice(a, newv[:, None], (0, t))
+        return a, None
 
-        def phase2_step(a, t):
-            active = t <= n_used - 3
-            parent = _dyn_col(a, t) - 1
-            pdepth = jnp.take_along_axis(a, jnp.clip(parent, 0, S - 1)[:, None], axis=1)[:, 0]
-            newv = jnp.where(active, pdepth + 1, _dyn_col(a, t))
-            a = lax.dynamic_update_slice(a, newv[:, None], (0, t))
-            return a, None
-
-        a, _ = lax.scan(
-            phase2_step, a, jnp.arange(S - 3, -1, -1, dtype=jnp.int32)
-        )
+    a, _ = lax.scan(
+        phase2_step, a, jnp.arange(S - 3, -1, -1, dtype=jnp.int32)
+    )
 
     # ---- phase 3: closed form ---------------------------------------------
     # internal_at[d] over t < n_used-1; avail[d] = 2*internal_at[d-1],
@@ -364,15 +346,6 @@ def limited_lengths(lengths: jnp.ndarray, max_len: int) -> jnp.ndarray:
         kraft = kraft - (full >> l) + (full >> l_new)
         lens = lens.at[lane, p].set(l_new)
         return (kraft, lens), None
-
-    if _mk_impl() == "pallas" and S % 8 == 0:
-        from .mk_pallas import kraft_limit_pallas
-
-        lens_b = kraft_limit_pallas(clamped, n_used, kraft0, max_len)
-        repaired = jnp.zeros((B, S), jnp.int32).at[lane[:, None], order].set(
-            jnp.where(in_used, lens_b, 0)
-        )
-        return jnp.where(over[:, None], repaired, lengths)
 
     (kraft, lens_a), _ = lax.scan(
         lengthen, (kraft0, clamped), jnp.arange(S - 1, -1, -1, dtype=jnp.int32)

@@ -1,14 +1,8 @@
-"""Symbol histograms on TPU.
+"""Symbol histograms on the device.
 
 Per-block symbol-frequency histograms feed the Huffman layer; corpus-level
 histograms are psum'd across the device mesh (see zultra_tpu.parallel).
-
-Two implementations:
-* ``token_histogram_jax`` — XLA one-hot matmul (MXU): tokens → one-hot
-  matrix product with a ones vector, the canonical TPU bincount.
-* ``byte_histogram_pallas`` — a Pallas kernel tiling the input through
-  VMEM as (1, tile) rows and accumulating per-tile one-hot sums on the
-  MXU. TPU-lowering friendly: 2D blocks, iota compares, no gathers.
+``token_histogram_jax`` counts in int32, so every count is exact.
 """
 
 from __future__ import annotations
@@ -17,60 +11,10 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
 
 
 @functools.partial(jax.jit, static_argnames=("n_symbols",))
 def token_histogram_jax(symbols: jnp.ndarray, n_symbols: int = 288) -> jnp.ndarray:
-    """Histogram of int32 symbols in [0, n_symbols) via MXU one-hot matmul."""
+    """Histogram of int32 symbols in [0, n_symbols): an int32 one-hot sum."""
     one_hot = jax.nn.one_hot(symbols, n_symbols, dtype=jnp.int32)
     return jnp.sum(one_hot, axis=0)
-
-
-def _hist_kernel(x_ref, out_ref, *, tile: int, n_symbols: int):
-    step = pl.program_id(0)
-
-    @pl.when(step == 0)
-    def _init():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    data = x_ref[0, :].astype(jnp.int32)  # (tile,)
-    # One-hot accumulate on the MXU: (1, tile) @ (tile, n_symbols).
-    cols = jax.lax.broadcasted_iota(jnp.int32, (tile, n_symbols), 1)
-    one_hot = (data[:, None] == cols).astype(jnp.float32)
-    ones = jnp.ones((1, tile), dtype=jnp.float32)
-    out_ref[:] += jnp.dot(ones, one_hot, preferred_element_type=jnp.float32)
-
-
-def byte_histogram_pallas(data, n_symbols: int = 256, tile: int = 4096,
-                          interpret: bool = False) -> np.ndarray:
-    """Histogram of a uint8 array computed tile-by-tile in VMEM.
-
-    Exact for any input size: float32 one-hot accumulation is exact up to
-    2^24 counts per bucket, so larger inputs are chunked at 2^24 bytes and
-    summed in int64."""
-    arr = np.asarray(data, dtype=np.uint8)
-    n = arr.shape[0]
-    if n > (1 << 24):
-        total = np.zeros(n_symbols, dtype=np.int64)
-        for lo in range(0, n, 1 << 24):
-            total += byte_histogram_pallas(
-                arr[lo : lo + (1 << 24)], n_symbols, tile, interpret
-            )
-        return total
-    padded = int(np.ceil(max(n, 1) / tile)) * tile
-    # Pad with an out-of-range marker by widening to int32.
-    wide = np.full(padded, n_symbols, dtype=np.int32)
-    wide[:n] = arr
-
-    grid = padded // tile
-    out = pl.pallas_call(
-        functools.partial(_hist_kernel, tile=tile, n_symbols=n_symbols),
-        out_shape=jax.ShapeDtypeStruct((1, n_symbols), jnp.float32),
-        grid=(grid,),
-        in_specs=[pl.BlockSpec((1, tile), lambda i: (0, i))],
-        out_specs=pl.BlockSpec((1, n_symbols), lambda i: (0, 0)),
-        interpret=interpret,
-    )(jnp.asarray(wide.reshape(1, padded)))
-    return np.asarray(out)[0].astype(np.int64)

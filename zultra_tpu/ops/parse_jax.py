@@ -2,16 +2,16 @@
 
 The backward DP (reference src/blockdeflate.c:254-323; spec
 zultra_tpu/parse.py) recast for XLA: a single ``lax.scan`` over positions
-(reverse order) carrying a 259-slot ring of future costs in registers/VMEM,
+(reverse order) carrying a 259-slot ring of future costs,
 with the 8 candidate matches × 37 truncated lengths evaluated as one
 vectorized min-reduce per step using the same packed (cost<<6 | 63-k)
 tie-break encoding as the native engine.
 
 This is the semantically exact kernel used for cross-validation and small
 blocks. The sequential dependence (cost[i] needs cost[i+1]) caps its
-throughput on big blocks — the scan executes ~n steps — so the production
-engine keeps the DP on the host; a blocked speculative wavefront variant
-is the planned Pallas follow-up (see docs/ARCHITECTURE.md).
+throughput on big blocks — the scan executes ~n steps. The device
+planner runs ops/parse_wavefront._dp_scan_cost off the GPU and the CUDA
+kernel of ops/dp_cuda on it.
 """
 
 from __future__ import annotations

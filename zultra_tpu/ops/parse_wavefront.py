@@ -27,9 +27,9 @@ Structure (one jit per padded block size):
     reference scan order (strict improvements; within a match, larger
     truncation wins ties) — values are unique, choices are order-defined.
 
-This is the TPU-shaped formulation of the hottest reference loop; see
-docs/ARCHITECTURE.md for measured throughput against the host DP on both
-backends.
+The planner uses only the scan half of this module (_prep, _osmin_k,
+_dp_scan_cost, _select_pass); the tiled wavefront is kept for the
+cross-validation tests.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ def _varlen_tables(lit_lens):
 
 def _prep(lit_lens, off_lens, window, mlens, moffs, length, n_pad):
     """Shared per-position statics for both DP formulations. All RFC
-    symbol maps run as closed-form VPU arithmetic + small selects
+    symbol maps run as closed-form elementwise arithmetic + small selects
     (ops/symbol_map) — no (n, 8)-shaped table gathers."""
     from .symbol_map import (
         matchlen_sym_extra_base,
@@ -114,9 +114,7 @@ def _prep(lit_lens, off_lens, window, mlens, moffs, length, n_pad):
 def _osmin_k(short_clamped, run_min, n_long, ks):
     """Per-(position, k) cheapest eligible offset cost: prefix-min over
     the length-sorted shorts with at least k bytes. The index can only be
-    0..7, so an 8-way select replaces the (n, 37) gather — the VPU
-    selects run ~100× faster than HBM random access (§6 primitive
-    table)."""
+    0..7, so an 8-way elementwise select replaces the (n, 37) gather."""
     cnt_k = jnp.sum(short_clamped[:, :, None] >= ks[None, None, :], axis=1)  # (n, 37)
     sel = jnp.clip(n_long[:, None] + cnt_k - 1, 0, NMATCHES_PER_OFFSET - 1)
     osmin = jnp.full(sel.shape, INF)
@@ -276,13 +274,11 @@ def _select_pass(cost, lit_cost, mlens, moffs, osize, clamped,
 
 def _dp_scan_cost(lit_cost, osmin_k, long_cost_static, long_step,
                   length, varlen_k, n_pad):
-    """Exact backward cost DP as ONE lax.scan over positions — the
-    latency-lean cost producer (VERDICT round-2 item 2): ~7 vector ops
-    per step via the per-k cheapest-offset prefix-min (osmin_k), with
+    """Exact backward cost DP as ONE lax.scan over positions: ~7 vector
+    ops per step via the per-k cheapest-offset prefix-min (osmin_k), with
     the order-exact (length, offset) choices reconstructed afterwards by
-    ``_select_pass`` from the converged costs. Step cost on the v5e is
-    near-independent of batch width, so batching blocks as vmap lanes
-    multiplies throughput at close to constant wall clock.
+    ``_select_pass`` from the converged costs. Batched blocks ride as
+    vmap lanes of the same scan.
 
     Beyond-block positions need no masking: lit_cost is 0 there (_prep)
     and the ring carries zeros forward, so best = min(0+0, ·) = 0, which
@@ -346,9 +342,8 @@ def _dp_scan_batch(lit_lens, off_lens, windows, mlens, moffs, lengths, n_pad):
 @functools.partial(jax.jit, static_argnames=("n_pad",))
 def _dp_wavefront_batch(lit_lens, off_lens, windows, mlens, moffs, lengths, n_pad):
     """Batched wavefront DP: vmap of ``_dp_wavefront`` over independent
-    blocks (VERDICT round-2 item 2 — the sequential tile loop's ~45 small
-    ops per tile amortize over the batch instead of timing out in per-op
-    latency). All leading dims are the batch axis; each lane carries its
+    blocks (the sequential tile loop's ~45 small ops per tile amortize
+    over the batch). All leading dims are the batch axis; each lane carries its
     own code-length tables. The batched while_loop runs until every lane's
     tile fixpoint converges — lanes that converge early recompute
     identical values, which is the exactness-preserving form of batching a

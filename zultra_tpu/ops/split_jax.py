@@ -66,12 +66,10 @@ MAX_RANGES = 64
 N_LEVELS = 6  # reference: depth >= 6 prunes
 
 
-def _token_structure(window, row_len, row_off, prev, n_real, n: int,
-                     tok_in=None):
+def _token_structure(window, row_len, row_off, prev, n_real, n: int):
     """Greedy token chain from match-table row 0 (the packed-chain
     equivalent of native build_greedy_chain): token starts by pointer
-    doubling — or, on TPU, precomputed by the on-core Pallas walk and
-    passed in as ``tok_in`` — then compacted per-token arrays.
+    doubling, then compacted per-token arrays.
 
     ``n`` is the static padded size; ``prev``/``n_real`` are traced.
     Returns (n_tok, starts, ends, bucket, sym1, sym2) — arrays of
@@ -81,22 +79,19 @@ def _token_structure(window, row_len, row_off, prev, n_real, n: int,
     is_match = row_len >= MIN_MATCH_SIZE
     step = jnp.where(is_match, row_len, 1)
 
-    if tok_in is not None:
-        is_tok = tok_in
-    else:
-        nxt = jnp.minimum(idx + step, n)
-        jmp = jnp.concatenate([nxt, jnp.full((1,), n, jnp.int32)])
-        mark = jnp.zeros(n + 1, jnp.int32).at[prev].set(1)
-        rounds = max(1, int(math.ceil(math.log2(n + 1))) + 1)
-        for _ in range(rounds):
-            mark = jnp.maximum(
-                mark, jnp.zeros(n + 1, jnp.int32).at[jmp].max(mark, mode="drop")
-            )
-            jmp = jmp[jmp]
-        is_tok = (mark[:n] == 1) & (idx >= prev) & (idx < n_real)
+    nxt = jnp.minimum(idx + step, n)
+    jmp = jnp.concatenate([nxt, jnp.full((1,), n, jnp.int32)])
+    mark = jnp.zeros(n + 1, jnp.int32).at[prev].set(1)
+    rounds = max(1, int(math.ceil(math.log2(n + 1))) + 1)
+    for _ in range(rounds):
+        mark = jnp.maximum(
+            mark, jnp.zeros(n + 1, jnp.int32).at[jmp].max(mark, mode="drop")
+        )
+        jmp = jmp[jmp]
+    is_tok = (mark[:n] == 1) & (idx >= prev) & (idx < n_real)
 
     # Token symbols / buckets at every position (masked by is_tok later);
-    # symbol maps as closed-form VPU arithmetic (ops/symbol_map).
+    # symbol maps as closed-form elementwise arithmetic (ops/symbol_map).
     from .symbol_map import matchlen_sym_extra_base, offset_sym_extra_base
 
     e = jnp.clip(row_len - MIN_MATCH_SIZE, 0, 255)
@@ -115,9 +110,7 @@ def _token_structure(window, row_len, row_off, prev, n_real, n: int,
     )
 
     # Compact to token index order: ONE 3-array sort (key + position +
-    # packed fields) instead of five scatters — scatters are the chip's
-    # second-weakest primitive and ~21M updates per 16-window batch,
-    # while the same compaction as a sort is ~3x cheaper (§6 economics).
+    # packed fields) instead of five scatters.
     n_tok = jnp.sum(is_tok.astype(jnp.int32))
     key = jnp.where(is_tok, idx, INF32)
     packed = (
@@ -154,8 +147,7 @@ def _trig_cap(in_cap: int) -> int:
 
 @functools.partial(jax.jit, static_argnames=("n", "in_cap", "trig_cap"))
 def _split_kernel(window, row_len, row_off, prev, n_real, n: int,
-                  in_cap: int | None = None, tok_in=None,
-                  trig_cap: int = 0):
+                  in_cap: int | None = None, trig_cap: int = 0):
     """Split points for the window range [prev, n_real). ``n`` is the
     static padded buffer size (few compiled shapes); prev/n_real are
     traced. ``in_cap`` (static) bounds the INPUT bytes (n_real - prev) —
@@ -169,7 +161,7 @@ def _split_kernel(window, row_len, row_off, prev, n_real, n: int,
     if in_cap is None:
         in_cap = n
     n_tok, starts, ends, bucket_t, sym1_t, sym2_t, tok_marks = _token_structure(
-        window, row_len, row_off, prev, n_real, n, tok_in
+        window, row_len, row_off, prev, n_real, n
     )
     tok_valid = jnp.arange(n, dtype=jnp.int32) < n_tok
 
@@ -398,34 +390,12 @@ def _split_kernel_batch(win_p, rl, ro, prev, n_real, n: int,
     program splits every window of a batch (the level loops' latency
     amortizes across lanes). ``prev`` is shared (the stacked lane layout
     puts the first input byte at the same offset in every lane);
-    ``n_real`` is per-lane. On TPU the token chain walk runs ONCE for
-    the whole batch in the Pallas forward-walk kernel (outside the vmap);
-    elsewhere each lane pointer-doubles inside the vmap."""
-    tok = _batch_chain_marks(rl, prev, n_real, n)
-    if tok is None:
-        return jax.vmap(
-            lambda w, l, o, nr: _split_kernel(w, l, o, prev, nr, n, in_cap,
-                                              trig_cap=trig_cap)
-        )(win_p, rl, ro, n_real)
+    ``n_real`` is per-lane. Each lane pointer-doubles its token chain
+    inside the vmap."""
     return jax.vmap(
-        lambda w, l, o, nr, tk: _split_kernel(w, l, o, prev, nr, n, in_cap, tk,
-                                              trig_cap=trig_cap)
-    )(win_p, rl, ro, n_real, tok)
-
-
-def _batch_chain_marks(rl, prev, n_real, n: int):
-    """Batched greedy-chain marks for the splitter's lanes via the Pallas
-    forward walk (TPU), or None to pointer-double per lane."""
-    from .block_jax import _chain_impl
-
-    if _chain_impl() != "pallas":
-        return None
-    from .chain_pallas import chain_marks_pallas
-
-    B = rl.shape[0]
-    step = jnp.where(rl >= MIN_MATCH_SIZE, rl, 1)
-    starts = jnp.broadcast_to(jnp.asarray(prev, jnp.int32), (B,))
-    return chain_marks_pallas(step, starts, n_real, n)
+        lambda w, l, o, nr: _split_kernel(w, l, o, prev, nr, n, in_cap,
+                                          trig_cap=trig_cap)
+    )(win_p, rl, ro, n_real)
 
 
 @functools.lru_cache(maxsize=None)
@@ -470,22 +440,18 @@ def block_split_jax(window, match_table, prev: int, in_size: int):
     ro = np.zeros(n_pad, np.int32)
     ro[:n] = mt[:n, 0, 1]
     rl_j, ro_j = jnp.asarray(rl), jnp.asarray(ro)
-    tok = _batch_chain_marks(
-        rl_j[None, :], jnp.int32(prev), jnp.asarray([n], jnp.int32), n_pad
-    )
     in_cap = _input_cap(in_size)
     splits, n_splits, _, ovf = _split_kernel(
         jnp.asarray(win_p), rl_j, ro_j,
         jnp.int32(prev), jnp.int32(n), n_pad, in_cap,
-        None if tok is None else tok[0], trig_cap=_trig_cap(in_cap),
+        trig_cap=_trig_cap(in_cap),
     )
     if bool(ovf):
         # Exact retry: more triggers than the compact budget (degenerate
         # drift patterns) — rerun this window with every slot evaluated.
         splits, n_splits, _, _ = _split_kernel(
             jnp.asarray(win_p), rl_j, ro_j,
-            jnp.int32(prev), jnp.int32(n), n_pad, in_cap,
-            None if tok is None else tok[0], trig_cap=0,
+            jnp.int32(prev), jnp.int32(n), n_pad, in_cap, trig_cap=0,
         )
     out = [int(x) for x in np.asarray(splits[: int(n_splits)])]
     out.append(n)

@@ -1,7 +1,7 @@
-"""Suffix array + PLCP on TPU via prefix doubling.
+"""Suffix array + PLCP on the device via prefix doubling.
 
 The reference builds its SA with libdivsufsort's recursive induced sort —
-branchy, pointer-heavy, and hostile to accelerators. The TPU-shaped
+branchy, pointer-heavy, and hostile to accelerators. The device
 construction is Manber–Myers prefix doubling: ceil(log2 n) rounds of
 (sort by (rank_i, rank_{i+k}), re-rank), where each round is a flat
 device-wide sort + compare + cumsum — exactly the primitives XLA tiles
@@ -39,9 +39,7 @@ def _doubling_rounds(data: jnp.ndarray, n: int, levels: int,
     longer gram either (clients that clamp LCPs — the staircase match
     finder clamps at 258 — pass store_levels=8 and save half the table).
 
-    Measured on the v5e (docs/ARCHITECTURE.md): lax.sort moves ~900 M
-    elements/s while gather does ~94 M/s and scatter ~229 M/s, so every
-    round is built from sorts and elementwise ops only:
+    Every round is built from sorts and elementwise ops only:
       * one 3-array two-key sort (rank, rank2, idx) yields the sorted key
         columns AND the suffix order in one op (no post-sort gathers);
       * re-ranking returns to position order with a second sort keyed by

@@ -1,14 +1,13 @@
-"""Closed-form DEFLATE symbol mappings — VPU bit arithmetic instead of
-table gathers.
+"""Closed-form DEFLATE symbol mappings — elementwise bit arithmetic
+instead of table gathers.
 
 The (encoded length → symbol/extra/base) and (offset index →
 symbol/extra/base) maps (constants._build_length_tables /
 _build_offset_tables, mirroring reference src/blockdeflate.c:42-85) are
 pure functions of floor(log2(·)) and one mantissa bit, so the hot device
-paths compute them in ~10 elementwise ops instead of gathering from the
-256/512-entry tables: measured on the v5e, batched gathers run at
-~46-94 Melem/s while these fused VPU ops are effectively free — the
-planner pays several (n, 8)-shaped lookups per convergence pass.
+paths compute them in ~10 fusible elementwise ops instead of gathering
+from the 256/512-entry tables — the planner pays several (n, 8)-shaped
+lookups per convergence pass.
 
 Exactness: asserted equal to the generated tables for EVERY index in
 tests/test_ops.py (and the out-of-range guard indices 510/511 are only
@@ -65,7 +64,7 @@ def offset_sym_extra_base(oidx):
 
 def select_by_symbol(table_rows, sym, lo: int, hi: int, init):
     """out[...] = table_rows[..., sym[...]] for sym ∈ [lo, hi) — an
-    (hi-lo)-way VPU select replacing a data-table gather. ``table_rows``
+    (hi-lo)-way elementwise select replacing a data-table gather. ``table_rows``
     is (..., S) broadcastable against ``sym``'s leading dims; entries
     with sym outside [lo, hi) get ``init``."""
     out = jnp.full(sym.shape, init, dtype=table_rows.dtype)

@@ -63,8 +63,8 @@ def _window_device_step(windows: jnp.ndarray, levels: int):
 
     sa, rank = jax.vmap(one_window)(full)
 
-    one_hot = jax.nn.one_hot(windows.astype(jnp.int32), 256, dtype=jnp.float32)
-    local_hist = jnp.sum(one_hot, axis=(0, 1))
+    # int32 counts: a float32 sum would be exact only below 2^24 per bin.
+    local_hist = jnp.bincount(windows.reshape(-1).astype(jnp.int32), length=256)
     corpus_hist = jax.lax.psum(local_hist, axis_name=("dp", "sp"))
 
     # Adler-32 partial sums per window (combined on host via

@@ -292,7 +292,10 @@ def compress_windows_multihost(
     blobs gathered to host 0). Byte-identical to the one-process stream.
     A preset ``dictionary`` (≤32 KB) prefixes the first window's history
     exactly like the streaming core's set_dictionary (config-4 shape:
-    data-parallel over blocks WITH a shared dictionary)."""
+    data-parallel over blocks WITH a shared dictionary).
+
+    The workers are forked: call this only from a process that has not
+    opened a GPU, since CUDA state does not survive a fork."""
     import multiprocessing as mp
 
     from ..constants import HISTORY_SIZE
@@ -343,7 +346,7 @@ def compress_windows_jax_distributed(
     """Windows mode over an initialized ``jax.distributed`` job: this
     process plans its contiguous span of the stream's windows, all
     processes exchange serialized plans through one allgather collective
-    (gloo over TCP on CPU backends, ICI/DCN on TPU pods), and process 0
+    (gloo over TCP on CPU backends, NCCL between GPUs), and process 0
     stitches the single deflate stream at the true running bit phase.
 
     Returns the compressed bytes on process 0, ``None`` elsewhere. The
@@ -478,8 +481,11 @@ def bench_scaling(data: bytes, worker_counts=(1, 2), flags=0, max_block_size: in
                 subprocess.Popen(
                     [sys.executable, "-c", script, str(lo), str(hi)],
                     stdout=subprocess.PIPE, text=True,
+                    # JAX_PLATFORMS=cpu: the workers never open the GPU,
+                    # which admits one process per card.
                     env={**os.environ, "ZN_THREADS": "1",
-                         "ZULTRA_PIPELINE_WORKERS": "1"},
+                         "ZULTRA_PIPELINE_WORKERS": "1",
+                         "JAX_PLATFORMS": "cpu"},
                 )
                 for lo, hi in spans
             ]

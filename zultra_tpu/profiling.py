@@ -5,7 +5,7 @@ The reference's only instrumentation is CLI wall-clock timing
 
 * stage timing: ``stage_timer`` contexts aggregating per-stage wall time
   (the native engine's internal breakdown is exposed via ZN_PROFILE=1);
-* device tracing: ``trace`` wraps jax.profiler for TPU timelines;
+* device tracing: ``trace`` wraps jax.profiler for device timelines;
 * stream metrics: Stream.total_in/total_out plus ``stream_stats``.
 """
 

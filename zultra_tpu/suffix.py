@@ -6,12 +6,12 @@ libdivsufsort (reference src/libdivsufsort/) followed by a permuted-LCP
 (reference src/matchfinder.c:49-90).
 
 A suffix array is canonical — every correct construction algorithm yields
-the identical permutation — so this module is free to use TPU-shaped
+the identical permutation — so this module is free to use data-parallel
 algorithms instead of divsufsort's recursive induced sort:
 
 * ``suffix_array_numpy``: prefix-doubling with ``np.lexsort`` (the host
   spec path, O(n log² n) but fully vectorized).
-* a Pallas/JAX prefix-doubling variant lives in ``zultra_tpu.ops``.
+* a JAX prefix-doubling variant lives in ``zultra_tpu.ops``.
 
 The PLCP array is likewise uniquely defined; ``plcp_numpy`` computes it
 with a vectorized batch-doubling comparison instead of the sequential
