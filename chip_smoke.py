@@ -18,9 +18,8 @@ One GPU, one process, through the public entry points:
   6. dp        the CUDA cost-DP kernel against the XLA scan DP at the
                planner's widths (16 lanes, n_pad buckets up to 2^20)
 With --chips 4: compress_device over a 4x1 and a 2x2 mesh, and
-compress_sharded over a 4x1 mesh, each on 8 MiB (two windows per card;
-a scale cut of the 128 MiB cell), byte for byte against the one-card
-compress_device result.
+compress_sharded over a 4x1 mesh, each on 128 MiB, byte for byte against
+the native engine and the one-card compress_device result.
 
 Every phase prints one line: bytes in and out, wall time, the compile
 time JAX reported inside it and how many programs it compiled, the
@@ -46,7 +45,7 @@ MiB = 1 << 20
 
 FULL = {
     "bulk": 32 * MiB, "mixed": 32 * MiB, "stream": 4 * MiB, "dict": 4 * MiB,
-    "cli": 8 * MiB, "mesh": 8 * MiB, "block": 0,
+    "cli": 8 * MiB, "mesh": 128 * MiB, "block": 0,
     "dp_pads": tuple(1 << k for k in range(12, 21)), "dp_lanes": 16,
 }
 # Rehearsal on the CPU: the same control flow at sizes the CPU compiles
@@ -268,11 +267,15 @@ def mesh(cfg, seed: int, runner: Runner) -> None:
     devices = runner.devices
     if len(devices) < 4:
         raise SystemExit(f"--chips 4 needs 4 devices, JAX found {len(devices)}")
+    t0 = time.perf_counter()
     data = corpus.text_like(cfg["mesh"], seed)
+    t1 = time.perf_counter()
     mbs = cfg["block"]
     gz = zt.FLAG_GZIP_FRAMING
     engine.set_engine("native")
     ref = zt.compress(data, gz, mbs)
+    print("setup " + json.dumps({"corpus_s": t1 - t0,
+                                 "native_s": time.perf_counter() - t1}), flush=True)
     results = {}
 
     def keep(name):
@@ -281,13 +284,10 @@ def mesh(cfg, seed: int, runner: Runner) -> None:
             return len(out), out == ref and gunzip(out) == data, {}
         return check
 
-    # Scale cut: each cold mesh program costs compile time on four cards,
-    # so the run holds two windows per card, not the 128 MiB cell.
-    note = f"corpus {len(data)} B, cut from 128 MiB" if len(data) < 128 * MiB else ""
     for name, (n_dp, n_sp) in (("mesh_4x1", (4, 1)), ("mesh_2x2", (2, 2))):
         m = make_mesh(n_dp=n_dp, n_sp=n_sp, devices=devices[:4])
         runner.phase(name, lambda m=m: compress_device(data, gz, mbs, mesh=m),
-                     keep(name), len(data), note)
+                     keep(name), len(data))
     # Every card must have carried a share of the mesh work (the CPU
     # keeps no memory statistics, so a rehearsal cannot tell).
     peaks = [peak_bytes(d) for d in devices[:4]]
@@ -300,14 +300,14 @@ def mesh(cfg, seed: int, runner: Runner) -> None:
             runner.failed.append("mesh_spread")
     m = make_mesh(n_dp=4, n_sp=1, devices=devices[:4])
     runner.phase("sharded_4x1", lambda: compress_sharded(data, m, gz, mbs),
-                 keep("sharded_4x1"), len(data), note)
+                 keep("sharded_4x1"), len(data))
     runner.phase(
         "one_card", lambda: compress_device(data, gz, mbs),
         lambda out: (len(out),
                      out == ref and gunzip(out) == data
                      and all(r == out for r in results.values()),
                      {"compared": sorted(results)}),
-        len(data), note,
+        len(data),
     )
 
 

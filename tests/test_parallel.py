@@ -198,6 +198,35 @@ def test_compress_sharded_mesh_byte_identical(lz_corpus):
     assert got == expect
 
 
+def test_compress_sharded_chunked_dispatch(lz_corpus, monkeypatch):
+    """Match segments beyond MESH_CHUNK per device go out in several
+    dispatches of one shape; the stream is unchanged."""
+    import zultra_tpu as zt
+    from zultra_tpu.ops import matchfinder_jax
+    from zultra_tpu.parallel import compress_sharded, make_mesh
+
+    monkeypatch.setattr(matchfinder_jax, "MESH_CHUNK", 1)
+    data = (lz_corpus["source_code"] * 4)[: 2 * 32768 + 100]
+    got = compress_sharded(data, make_mesh(n_dp=4, n_sp=2),
+                           zt.FLAG_GZIP_FRAMING, max_block_size=32768,
+                           seg_core=8192)
+    assert got == zt.compress(data, zt.FLAG_GZIP_FRAMING, 32768)
+
+
+def test_lanes_mesh_one_mesh_per_device_count():
+    """Every factorisation of the same devices becomes one (n, 1) mesh, in
+    the same device order, so the lane-split stages share programs."""
+    import jax
+
+    from zultra_tpu.parallel import lanes_mesh, make_mesh
+
+    flat = lanes_mesh(make_mesh(n_dp=8, n_sp=1))
+    assert lanes_mesh(make_mesh(n_dp=4, n_sp=2)) == flat
+    assert lanes_mesh(make_mesh(n_dp=2, n_sp=4)) == flat
+    assert dict(flat.shape) == {"dp": 8, "sp": 1}
+    assert list(flat.devices.reshape(-1)) == jax.devices()[:8]
+
+
 def test_compress_sharded_dictionary_byte_identical(lz_corpus):
     """Sharded compression with a preset dictionary equals the streaming
     core's dictionary path byte for byte (zlib framing carries DICTID)."""

@@ -391,7 +391,11 @@ def compress_device(
     checksum = frame.update_checksum(checksum, corpus[base:], flags)
 
     if mesh is not None:
-        windows_per_batch *= mesh.shape["dp"] * mesh.shape["sp"]
+        from .parallel import lanes_mesh
+
+        # Every mesh stage splits lanes over dp x sp with no collectives.
+        mesh = lanes_mesh(mesh)
+        windows_per_batch *= mesh.shape["dp"]
     buf = bytearray(memory_bound(mbs, flags, mbs))
     bits_data, bits_count = 0, 0
     for g in range(0, len(spans), windows_per_batch):

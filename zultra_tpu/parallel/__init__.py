@@ -40,6 +40,15 @@ def make_mesh(n_dp: int | None = None, n_sp: int = 1, devices=None) -> Mesh:
     return Mesh(devices, axis_names=("dp", "sp"))
 
 
+def lanes_mesh(mesh: Mesh) -> Mesh:
+    """``mesh`` as an (n, 1) ('dp', 'sp') mesh over the same devices in the
+    same order. Stages that split one lane axis over the product of both
+    axes and exchange nothing place every lane on the same device either
+    way; the (n, 1) form makes every factorisation of n one mesh, so they
+    share compiled programs."""
+    return Mesh(mesh.devices.reshape(-1, 1), axis_names=("dp", "sp"))
+
+
 # ---------------------------------------------------------------------------
 # Sharded per-window device step
 # ---------------------------------------------------------------------------
@@ -162,7 +171,8 @@ def compress_sharded(
     spans = [(lo + d, hi + d) for lo, hi in window_spans(len(data), max_block_size)]
 
     tables = match_tables_for_spans(
-        full, spans, seg_core=seg_core, budget_factor=budget_factor, mesh=mesh
+        full, spans, seg_core=seg_core, budget_factor=budget_factor,
+        mesh=lanes_mesh(mesh),
     )
 
     lib = native.get_lib()
